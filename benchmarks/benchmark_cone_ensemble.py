@@ -4,30 +4,26 @@ north-star workload ("batched 1k-dim box/cone QPs", BASELINE.json).
 Workload: B independent QPs, n=999 (333 Lorentz-cone blocks of dim 3,
 mu=1), conditioned Wishart A = G G^T + n I, b = -A x_uncon, tol 1e-5,
 matching the disjoint-family structure of the reference's cone study
-(``/root/reference/benchmarks/benchmark_random_ccqp.py:201-211``) at
+(``CCQPpy/benchmarks/benchmark_random_ccqp.py:201-211``) at
 headline scale instead of n<=12.
 
-Configuration (round 5, each step measured on chip):
+Configuration:
   * HEADLINE solver: strong-convexity accelerated projected gradient
     (``models.apgd.solve_sc``) with per-lane spectral bounds estimated
     ONCE per fixed ensemble by power iteration
     (``ops.linop.estimate_spectral_bounds`` — one-time prep outside the
     clock, same status as the Jacobi diagonal).  One matvec per
-    iteration, linear rate 1 - sqrt(mu/L): p50 21 sweeps vs fused
-    MPRGP-BB's 40 on this exact ensemble, with a 21-22 sweep
-    distribution so tight that straggler compaction is unnecessary;
+    iteration, linear rate 1 - sqrt(mu/L), with a sweep distribution so
+    tight that straggler compaction is unnecessary;
   * cone-Jacobi warm start x0 = proj_cone(-b / diag A);
-  * round-4 comparison rows retained: fused single-sweep MPRGP-BB
-    (ONE HBM sweep per iteration; p50 40) with compaction
-    (phase1=43 ~ p95, bucket=256), and SPG;
+  * comparison rows: fused single-sweep MPRGP-BB (ONE HBM sweep per
+    iteration) with compaction (phase1=43 ~ p95, bucket=256), and SPG;
   * pipelined steady-state timing (K=10 batches in flight, one fence) for
     the serving number, single-dispatch alongside — both through the
     roofline-guarded ``timed_run`` (utils/benchmark.py), full-output
-    materialization fence.  The bf16->f32 ladder was measured and REJECTED
-    for this workload in round 4: 1.8k solves/s (bf16 GEMV lowers at
-    ~425 GB/s effective; the polish restart erases the byte win).
+    materialization fence.
 
-Reference counterpart measured in this container (BASELINE.md method):
+Reference counterpart (BASELINE.md method, CPU):
 the reference has no working cone projection at all (its ConeProjOp is
 flagged bugged in its own source, ``solution_spaces.py:439``), so the
 honest baseline is the box-family reference throughput 157.7 solves/s.
@@ -58,16 +54,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from ccqppy_tpu.models import SOLVERS
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.models.mprgp import MPRGPBBConfig
-    from ccqppy_tpu.ops import projections as P
-    from ccqppy_tpu.ops.linop import DenseOperator
-    from ccqppy_tpu.parallel import (prepare_dense_batch, solve_batched,
+    from ccqppy_jax.models import SOLVERS
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.models.mprgp import MPRGPBBConfig
+    from ccqppy_jax.ops import projections as P
+    from ccqppy_jax.ops.linop import DenseOperator
+    from ccqppy_jax.parallel import (prepare_dense_batch, solve_batched,
                                      solve_batched_fused_compact)
-    from ccqppy_tpu.utils.benchmark import (dense_sweep_bytes, materialize,
-                                            timed_run)
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    from ccqppy_jax.utils.benchmark import (dense_sweep_bytes, materialize,
+                                            peak_hbm_bytes_per_s, timed_run)
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(0), BATCH, N,
                                 jnp.float32, diag_boost=1.0, chunk=256)
@@ -89,9 +85,9 @@ def main():
         # below the f32 ulp of |b| and leave most entries bitwise unchanged.
         return bs + 1e-3 * jax.random.normal(k, bs.shape, bs.dtype)
 
-    # Conservative implied-traffic floors for the roofline guard: 2/3 of
-    # each configuration's p50 sweeps (mprgp 40, apgd_sc 21) so honest
-    # run-to-run variance never trips them.
+    # Conservative implied-traffic floors for the roofline guard: about
+    # 2/3 of each configuration's p50 sweeps (mprgp ~40, apgd_sc ~21) so
+    # honest run-to-run variance never trips them.
     implied = dense_sweep_bytes(BATCH, N, 27)
     implied_sc = dense_sweep_bytes(BATCH, N, 14)
 
@@ -121,8 +117,8 @@ def main():
         return row
 
     # --- headline config: apgd_sc + spectral-bound prep + cone-Jacobi x0 --
-    from ccqppy_tpu.models import APGDSCConfig
-    from ccqppy_tpu.ops.linop import SpectralDense, estimate_spectral_bounds
+    from ccqppy_jax.models import APGDSCConfig
+    from ccqppy_jax.ops.linop import SpectralDense, estimate_spectral_bounds
 
     t0 = time.perf_counter()
     Lb, mub = estimate_spectral_bounds(As, iters=32)
@@ -142,7 +138,7 @@ def main():
     audit_row("apgd_sc + spectral prep", out.wall_s, out.result, b_last,
               {"prep_seconds_outside_clock": round(prep_s, 1)})
 
-    # --- round-4 configuration as comparison: fused MPRGP-BB + compaction -
+    # --- comparison: fused MPRGP-BB + compaction ------------------------
     cfg = MPRGPBBConfig(tol=TOL, max_matvecs=BUDGET, fused=True)
 
     def run_mprgp(b_):
@@ -167,7 +163,7 @@ def main():
         outs = [run_headline(b_) for b_ in bs_l]
         materialize(outs[-1])
         wall = (time.perf_counter() - t0) / PIPELINE
-        floor = implied_sc / (2 * 819e9)
+        floor = implied_sc / (2 * peak_hbm_bytes_per_s())
         assert wall > floor, f"pipelined wall {wall} under roofline floor"
         walls.append(wall)
         # Audit EVERY batch of EVERY trial outside the clock (advisor r4:

@@ -1,15 +1,15 @@
-"""f64-on-TPU cost probe: measure, don't assert (SURVEY.md section 7).
+"""f64 cost probe: measure, don't assert (SURVEY.md section 7).
 
-The framework's precision story (docs/precision.md) iterates in f32 on TPU
-and reserves f64 for CPU parity runs, on the claim that TPU f64 is emulated
-and slow.  This probe commits the measurement behind that claim: the SAME
-batched box-QP ensemble solved with the flagship PCG solver in f32 and in
-f64 (``jax_enable_x64``) on whatever backend is live, reporting wall clock,
-per-sweep cost, and the achieved true residual of each.
+The framework's precision story (docs/precision.md) iterates in f32 and
+reserves f64 for deep tolerances and CPU parity runs.  This probe measures
+what f64 costs: the SAME batched box-QP ensemble solved with the flagship
+PCG solver in f32 and in f64 (``jax_enable_x64``) on whatever backend is
+live, reporting wall clock, per-sweep cost, and the achieved true residual
+of each.
 
 The f64 run also answers the accuracy half of the story: how far below the
 f32 iterate floor (~1-2e-5 normalized Eq.25 residual at n=1000) the f64
-iterate actually lands on chip.
+iterate actually lands.
 
 Writes benchmarks/results/f64_probe.json.
 """
@@ -32,11 +32,11 @@ def run_dtype(dtype_name, tol):
     import jax.numpy as jnp
     import numpy as np
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.pcg import solve as pcg_solve
-    from ccqppy_tpu.ops.linop import DenseOperator
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.pcg import solve as pcg_solve
+    from ccqppy_jax.ops.linop import DenseOperator
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     dtype = jnp.dtype(dtype_name)
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(0), B, N, dtype,
@@ -50,7 +50,7 @@ def run_dtype(dtype_name, tol):
     # Roofline-guarded shared harness (utils/benchmark.py): full-output
     # materialization fence + physically-impossible-wall rejection; reps
     # perturb b with random noise above the working dtype's ulp of |b|.
-    from ccqppy_tpu.utils.benchmark import timed_run
+    from ccqppy_jax.utils.benchmark import timed_run
     itemsize = jnp.dtype(dtype).itemsize
 
     def mk(rep):

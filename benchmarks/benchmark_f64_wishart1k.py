@@ -1,29 +1,23 @@
-"""The reference's hardest workload, on chip: raw Wishart n=1000 at f64 truth.
+"""The reference's hardest workload: raw Wishart n=1000 at f64 truth.
 
 `BenchmarkRandomCCQP`'s generator with no diagonal boost
-(``/root/reference/benchmarks/benchmark_random_ccqp.py:59-60``) draws
-A ~ Wishart(df=n, I) — near-singular at n=1000 (condition ~1e5-1e7), the
-one baseline row this framework had not measured on TPU: f32 iterates
-floor around Eq.25 residual ~2e-5 on this family, so tol 1e-5 needs f64
-truth.  Reference counterpart: serial f64 numpy at **2.13 solves/s**
-(BBPGDf, tol 1e-5 — measured in this container, BASELINE.md).
+(``CCQPpy/benchmarks/benchmark_random_ccqp.py:59-60``) draws
+A ~ Wishart(df=n, I) — near-singular at n=1000 (condition ~1e5-1e7): f32
+iterates floor around Eq.25 residual ~2e-5 on this family, so tol 1e-5
+needs f64 truth.  Reference counterpart: serial f64 numpy at **2.13
+solves/s** (BBPGDf, tol 1e-5 — BASELINE.md, CPU).
 
-TPU f64 is EMULATED and hostile to the naive approach — measured here:
-the emulated batched f64 GEMV streams at ~10-30 GB/s effective (~25-65x
-under the f32 sweep), a B=256 emulated-f64 PCG program wants 15.6 GB of
-HBM, and a single dispatch running thousands of emulated sweeps crashes
-the TPU worker outright.  So this benchmark is the f64-EXACT rung of the
+This benchmark is the f64-EXACT rung of the
 existing mixed-precision ladder (models/pcg.py ``refresh_every`` +
 ``ops.linop.MixedPrecDense``): the operand pair is (A float64, A_low
 float32); CG recurrences ride native-f32 sweeps with the state carried in
 f64, and every ``refresh_every`` iterations — and before any convergence
-claim — the gradient is recomputed by ONE emulated-f64 sweep, which also
+claim — the gradient is recomputed by ONE f64 sweep, which also
 produces the only residuals ever reported.  Per refinement cycle the true
 residual contracts by ~ ||A - A_f32|| ||A^-1|| ~ 6e-8 * cond(A) (< 1 for
 cond up to ~1e7, exactly this family), so the solve reaches f64-grade
-residuals at f32 sweep cost.  B=64 keeps the emulated-f64 refresh program
-small; throughput is bandwidth-bound, so per-problem rate is insensitive
-to B.
+residuals at f32 sweep cost.  Whether plain f64 PCG (twice the bytes per
+sweep, native f64 on the card) beats this rung is not measured yet.
 
 Every row is audited by an independently recomputed f64 Eq.25 residual;
 timed through the roofline-guarded ``timed_run``.
@@ -45,11 +39,9 @@ B, N = 64, 1000
 # ~ eps_f32 * cond(A), so deep tolerances just take more cycles until the
 # f64-refresh floor (~ eps_f64 * cond * scale) is reached.
 TOLS = ((1e-5, 20_000), (1e-9, 60_000), (1e-10, 80_000))
-CHUNK_BUDGET = 10_000   # per-dispatch matvec cap: a single dispatch running
-                        # tens of thousands of emulated-f64 refresh sweeps
-                        # crashes the TPU worker (reproduced at 60k); deep
-                        # tolerances run as warm-restarted continuation
-                        # dispatches instead, budgets accumulating.
+CHUNK_BUDGET = 10_000   # per-dispatch matvec cap: deep tolerances run as
+                        # warm-restarted continuation dispatches, budgets
+                        # accumulating.
 REFRESH = 128
 SEGMENT_DROP = 0.25      # ~ few x eps_f32 * cond — see PCGConfig.segment_drop
 REFERENCE_SOLVES_PER_S = 2.13     # BASELINE.md, measured 2026-08-17 (tol 1e-5)
@@ -63,13 +55,13 @@ def main():
 
     import jax.numpy as jnp
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.models.pcg import solve as pcg_solve
-    from ccqppy_tpu.ops.linop import DenseOperator, MixedPrecDense
-    from ccqppy_tpu.utils.benchmark import timed_run
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.models.pcg import solve as pcg_solve
+    from ccqppy_jax.ops.linop import DenseOperator, MixedPrecDense
+    from ccqppy_jax.utils.benchmark import timed_run
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     dtype = jnp.float64
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(0), B, N, dtype,

@@ -2,12 +2,14 @@
 
 Dense storage at n=1M is 4 TB — impossible anywhere.  The block-sparse ELL
 operator (``ops.linop.BlockSparseOperator``: block-tridiagonal SPD, 4x4
-blocks, 3 blocks per block-row) holds the same problem in ~200 MB, and the
-matvec is a static gather + batched small GEMM on the MXU.  On one chip this
-script times the full PCG/BBPGDf solve; on a multi-device mesh the identical
-problem row-shards via ``parallel.solve_sharded_blocksparse`` (one tiled
-all-gather of x per iteration — exercised at small scale by
-``__graft_entry__.dryrun_multichip`` and tests/test_parallel.py).
+blocks, 3 blocks per block-row; ``utils.random_qp.block_tridiag_qp``) holds
+the same problem in ~200 MB, and the matvec is a static gather + batched
+small GEMM.  On one card this script times the full PCG/BBPGDf solve
+(``chip_smoke.py --four-cards`` checks the sharded solve against it); on a
+multi-device mesh the identical problem row-shards via
+``parallel.solve_sharded_blocksparse`` (one tiled all-gather of x per
+iteration — exercised at small scale by ``__graft_entry__.dryrun_multichip``
+and tests/test_parallel.py).
 
 The reference has no sparse or large-n path at all (dense numpy only; its
 benchmarks cap at n=36, ``benchmark_random_ccqp.py:188``).
@@ -27,9 +29,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ccqppy_tpu as cq
-from ccqppy_tpu.models import SOLVERS
-from ccqppy_tpu.ops.linop import BlockSparseOperator
+import ccqppy_jax as cq
+from ccqppy_jax.models import SOLVERS
+from ccqppy_jax.utils.random_qp import block_tridiag_qp
 
 OUT = pathlib.Path(__file__).resolve().parent / "results"
 
@@ -39,42 +41,11 @@ OUT = pathlib.Path(__file__).resolve().parent / "results"
 TOL = 1e-9
 BUDGET = 10_000
 BS = 4          # block size
-K = 3           # blocks per block-row (tridiagonal)
-
-
-def build_block_tridiag(n, seed=0, dtype=jnp.float32):
-    """SPD block-tridiagonal ELL operator + consistent rhs, built directly in
-    ELL layout (never materializes a dense matrix)."""
-    nbr = n // BS
-    rng = np.random.default_rng(seed)
-    # Random symmetric structure: off-diagonal block B_i couples rows i,i+1.
-    off = (0.35 * rng.standard_normal((nbr - 1, BS, BS))).astype(np.float32)
-    diag = 0.35 * rng.standard_normal((nbr, BS, BS)).astype(np.float32)
-    # Row-sum dominance keeps A SPD while leaving a nontrivial spectrum
-    # (condition ~1e2; tens of CG iterations).
-    diag = 0.5 * (diag + diag.transpose(0, 2, 1)) + 3.0 * np.eye(BS, dtype=np.float32)
-
-    blocks = np.zeros((nbr, K, BS, BS), np.float32)
-    cols = np.zeros((nbr, K), np.int32)
-    # slot 0: left neighbor (transpose of its off block), slot 1: diagonal,
-    # slot 2: right neighbor.  Edge rows pad with zero blocks pointing at 0.
-    blocks[1:, 0] = off.transpose(0, 2, 1)
-    cols[1:, 0] = np.arange(nbr - 1)
-    blocks[:, 1] = diag
-    cols[:, 1] = np.arange(nbr)
-    blocks[:-1, 2] = off
-    cols[:-1, 2] = np.arange(1, nbr)
-
-    op = BlockSparseOperator(jnp.asarray(blocks, dtype), jnp.asarray(cols),
-                             int(n))
-    x_exact = jnp.asarray(rng.uniform(-0.5, 0.5, n), dtype)
-    b = -op.matvec(x_exact)
-    return op, b, x_exact
 
 
 def main(n=1_000_000, solver="pcg", seed=0):
     n = int(n) // BS * BS
-    op, b, x_exact = build_block_tridiag(n, int(seed))
+    op, b, x_exact = block_tridiag_qp(n, int(seed), block=BS)
     jax.block_until_ready(op.blocks)
     proj = cq.box(-jnp.ones(n), jnp.ones(n))
     fn, cfg_cls = SOLVERS[solver][0], SOLVERS[solver][1]
@@ -83,7 +54,7 @@ def main(n=1_000_000, solver="pcg", seed=0):
     # Roofline-guarded shared harness (utils/benchmark.py); reps perturb b
     # with random noise well above the f32 ulp.  Conservative traffic
     # floor: 20 sweeps of the ELL blocks (PCG needs ~48).
-    from ccqppy_tpu.utils.benchmark import timed_run
+    from ccqppy_jax.utils.benchmark import timed_run
     ell_bytes = op.blocks.size * op.blocks.dtype.itemsize
 
     def mk(rep):

@@ -10,7 +10,7 @@ per refresh cycle, so it stays convergent while cond(A) << 1/eps_bf16 ~ 256,
 and the cheap-sweep fraction -> 1 as sweeps grow with sqrt(cond).
 
 This study scans the gap between the headline family and the raw Wishart
-(reference generator, ``/root/reference/benchmarks/benchmark_random_ccqp.py:59-60``,
+(reference generator, ``CCQPpy/benchmarks/benchmark_random_ccqp.py:59-60``,
 which is f32-infeasible at n=1000 — the iterate floors near residual 2e-5):
 ``A = G G^T + diag_boost * n * I`` at diag_boost in {0.1, 0.05, 0.02}
 (cond ~ 41 / 81 / 201), n=1000, box [-1,1]^n, Jacobi warm start, measuring
@@ -35,8 +35,8 @@ def true_residual_fn(proj, gd):
     import jax
     import jax.numpy as jnp
 
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops.linop import DenseOperator
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops.linop import DenseOperator
 
     def one(A, b, x):
         op = DenseOperator(A)
@@ -52,12 +52,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.pcg import solve as pcg_solve
-    from ccqppy_tpu.ops.linop import DenseOperator, MixedPrecDense
-    from ccqppy_tpu.parallel import prepare_dense_batch
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.pcg import solve as pcg_solve
+    from ccqppy_jax.ops.linop import DenseOperator, MixedPrecDense
+    from ccqppy_jax.parallel import prepare_dense_batch
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("-n", type=int, default=1000)
@@ -93,7 +93,7 @@ def main():
             return jax.vmap(one)(As, As16, bs, x0)
         return jax.jit(run)
 
-    from ccqppy_tpu.utils.benchmark import dense_sweep_bytes, timed_run
+    from ccqppy_jax.utils.benchmark import dense_sweep_bytes, timed_run
 
     def timed(fn, *arrs, tag=5):
         # Roofline-guarded shared harness (utils/benchmark.py): full-output

@@ -2,12 +2,12 @@
 projections, MPRGP-BB vs SPG (plus BBPGDf/PCG for context).
 
 The reference cannot run this configuration at all: its ConeProjOp is bugged
-(``/root/reference/src/ccqppy/solution_spaces.py:439`` "TODO: This projection
+(``CCQPpy/src/ccqppy/solution_spaces.py:439`` "TODO: This projection
 op is bugged") and a serial n=10k dense solve in f64 numpy takes minutes per
 trial.  Here the constraint set is the disjoint union of 3-dim Lorentz cones
 (``blockwise(lorentz_cone(mu), 3)`` — the contact-friction layout,
 ``benchmark_random_ccqp.py:202-211``), A is a conditioned Wishart, and each
-solver runs jitted on the chip.
+solver runs jitted on the device.
 
 Run:  python benchmarks/benchmark_large_cone.py [n] [mu]
 Writes benchmarks/results/large_cone.json and prints a table.
@@ -24,12 +24,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ccqppy_tpu as cq
-from ccqppy_tpu.models import SOLVERS
-from ccqppy_tpu.models.base import pg_residual
-from ccqppy_tpu.ops.linop import as_operator
-from ccqppy_tpu.ops import projections as P
-from ccqppy_tpu.utils.random_qp import random_qp
+import ccqppy_jax as cq
+from ccqppy_jax.models import SOLVERS
+from ccqppy_jax.models.base import pg_residual
+from ccqppy_jax.ops.linop import as_operator
+from ccqppy_jax.ops import projections as P
+from ccqppy_jax.utils.random_qp import random_qp
 
 OUT = pathlib.Path(__file__).resolve().parent / "results"
 
@@ -55,7 +55,7 @@ def main(n=9999, mu=1.0, seed=0):
         # at ~1e-4 |b| (a scalar shift would fall below the f32 ulp of
         # |b| ~ 1e4 and leave b bitwise unchanged).  Conservative traffic
         # floor: 8 sweeps of the n^2 operand (the cheapest solver does 19).
-        from ccqppy_tpu.utils.benchmark import timed_run
+        from ccqppy_jax.utils.benchmark import timed_run
         holder = {}
 
         def mk(rep, _name=name):

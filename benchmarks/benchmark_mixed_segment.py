@@ -2,7 +2,7 @@
 the reference's actual contact-mechanics pattern, batched.
 
 The reference's ``DisjointProjOp`` interleaves arbitrary per-contact sets
-with per-block parameters (``/root/reference/src/ccqppy/
+with per-block parameters (``CCQPpy/src/ccqppy/
 solution_spaces.py:495-560``; study shape at
 ``benchmark_random_ccqp.py:201-211``, n <= 12).  This benchmark proves the
 scalable form (``ops.projections.segment_product`` / ``SegmentProj``:
@@ -13,7 +13,7 @@ O(num_types) trace, per-group stacked parameters) under REAL load:
   boxes (per-block half-widths in [0.5, 1.5]), conditioned Wishart
   A = G G^T + n I, b = -A x_uncon, tol 1e-5.
 
-Solver: the round-5 strong-convexity accelerated projected gradient
+Solver: the strong-convexity accelerated projected gradient
 (``apgd_sc`` + per-lane spectral bounds, one-time prep — see
 benchmark_cone_ensemble.py), with fused MPRGP-BB as the comparison row.
 Compile time of the first batched solve is recorded to substantiate the
@@ -45,15 +45,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from ccqppy_tpu.models import APGDSCConfig, MPRGPBBConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops import projections as P
-    from ccqppy_tpu.ops.linop import (DenseOperator, SpectralDense,
+    from ccqppy_jax.models import APGDSCConfig, MPRGPBBConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops import projections as P
+    from ccqppy_jax.ops.linop import (DenseOperator, SpectralDense,
                                       estimate_spectral_bounds)
-    from ccqppy_tpu.parallel import prepare_dense_batch, solve_batched
-    from ccqppy_tpu.utils.benchmark import (dense_sweep_bytes, materialize,
-                                            timed_run)
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    from ccqppy_jax.parallel import prepare_dense_batch, solve_batched
+    from ccqppy_jax.utils.benchmark import (dense_sweep_bytes, materialize,
+                                            peak_hbm_bytes_per_s, timed_run)
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(0), BATCH, N,
                                 jnp.float32, diag_boost=1.0, chunk=256)
@@ -157,7 +157,8 @@ def main():
         outs = [run_headline(b_) for b_ in bs_l]
         materialize(outs[-1])
         wall = (time.perf_counter() - t0) / PIPELINE
-        assert wall > implied / (2 * 819e9), "wall under roofline floor"
+        assert wall > implied / (2 * peak_hbm_bytes_per_s()), \
+            "wall under roofline floor"
         walls.append(wall)
         for r_, b_ in zip(outs, bs_l):
             materialize(r_)

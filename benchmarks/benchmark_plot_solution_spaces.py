@@ -1,6 +1,6 @@
 """Visual smoke test of every projection operator.
 
-Re-design of ``/root/reference/benchmarks/benchmark_plot_solution_spaces.py``:
+Re-design of ``CCQPpy/benchmarks/benchmark_plot_solution_spaces.py``:
 builds each operator family for dims 1-3 and scatters projections of uniform
 box samples — but the sample projection is one vmapped device call and the
 figures are saved to files instead of blocking on plt.show().
@@ -18,8 +18,8 @@ import matplotlib
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402
 
-from ccqppy_tpu.ops import projections as P  # noqa: E402
-from ccqppy_tpu.utils.plotting import plot_projection_samples  # noqa: E402
+from ccqppy_jax.ops import projections as P  # noqa: E402
+from ccqppy_jax.utils.plotting import plot_projection_samples  # noqa: E402
 
 OUT = pathlib.Path(__file__).resolve().parent / "results"
 

@@ -1,7 +1,7 @@
 """Random-CCQP benchmark entry points.
 
-TPU-native re-design of the reference script
-(``/root/reference/benchmarks/benchmark_random_ccqp.py:155-221``): the same
+Batched re-design of the reference script
+(``CCQPpy/benchmarks/benchmark_random_ccqp.py:155-221``): the same
 two studies — single-constraint families and disjoint (blockwise) 3-dim
 constraint families — but each (solver, family, size) cell is one batched
 device solve, results go to JSON + PNG files instead of blocking interactive
@@ -17,7 +17,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax.numpy as jnp
 
-from ccqppy_tpu.utils.benchmark import (BenchmarkRandomCCQP, default_families,
+from ccqppy_jax.utils.benchmark import (BenchmarkRandomCCQP, default_families,
                                         disjoint_families)
 
 OUT = pathlib.Path(__file__).resolve().parent / "results"

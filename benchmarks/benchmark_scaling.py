@@ -1,17 +1,16 @@
 """Weak-scaling study: scenario-parallel solver throughput at 1..N devices.
 
-North-star target (BASELINE.json): >= 85% iterations/s scaling from 1 chip
-to 2 hosts.  The reference has nothing to port — its ensemble is a serial
-Python loop (``/root/reference/benchmarks/benchmark_random_ccqp.py:76-102``).
+North-star target (BASELINE.json): >= 85% iterations/s scaling from 1
+device to 2 hosts.  The reference has nothing to port — its ensemble is a serial
+Python loop (``CCQPpy/benchmarks/benchmark_random_ccqp.py:76-102``).
 
 Runs on whatever backend is live:
 
-* this container: the single TPU chip exposes one device — run with
-  ``--cpu`` for the 8-device virtual CPU mesh (same code path as a pod,
-  minus the ICI);
-* a real pod slice: run unchanged on every host after
-  ``parallel.init_distributed()`` (argument-free on TPU pods); the scenario
-  batch shards over the DCN axis of ``parallel.make_hybrid_mesh()`` so no
+* ``--cpu``: the 8-device virtual CPU mesh (same code path as several
+  cards, minus the interconnect);
+* one host with several GPUs: run unchanged; across hosts, run on every
+  host after ``parallel.init_distributed(...)``; the scenario batch shards
+  over the DCN axis of ``parallel.make_hybrid_mesh()`` so no
   iteration-critical collective crosses hosts.
 
 Writes benchmarks/results/scaling.json and prints the table.
@@ -43,7 +42,7 @@ def main():
         jax.config.update("jax_num_cpu_devices", args.devices)
     import jax
 
-    from ccqppy_tpu.parallel.distributed import init_distributed, scaling_probe
+    from ccqppy_jax.parallel.distributed import init_distributed, scaling_probe
 
     if args.distributed:
         init_distributed()
@@ -68,7 +67,7 @@ def main():
                             solver=args.solver, tol=0.0,
                             max_matvecs=64)
     show("skew-free control (fixed 64-matvec lanes)", control)
-    # 2. the round-2 configuration — small per-device batches to tolerance;
+    # 2. small per-device batches to tolerance;
     #    efficiency falls with device count because the fused while_loop
     #    runs every device to the globally slowest lane and the max over
     #    k*64 lanes grows with k (extreme-value tail).

@@ -1,11 +1,10 @@
-"""Render the reference-parity PNG curves from the committed study JSONs.
+"""Render the reference-parity PNG curves from the study JSONs.
 
 The reference's benchmark output is interactive matplotlib plots
-(``/root/reference/benchmarks/benchmark_random_ccqp.py:104-145``); ours are
+(``CCQPpy/benchmarks/benchmark_random_ccqp.py:104-145``); ours are
 files.  The study scripts (`benchmark_random_ccqp.py`) write both the JSON
-tensors and the PNGs when run on chip; this script re-renders the PNGs from
-the COMMITTED JSONs alone, so the committed curves are exactly the
-committed data — no re-solve, no hardware needed.
+tensors and the PNGs; this script re-renders the PNGs from those JSONs
+alone — no re-solve, no hardware needed.
 
 Run:  python benchmarks/render_plots.py
 Writes benchmarks/results/{single_constraint,disjoint_constraints}_{metric}.png
@@ -18,7 +17,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from ccqppy_tpu.utils.plotting import plot_benchmark_metric
+from ccqppy_jax.utils.plotting import plot_benchmark_metric
 
 RESULTS = pathlib.Path(__file__).resolve().parent / "results"
 

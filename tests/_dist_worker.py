@@ -25,10 +25,10 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as PSpec  # noqa: E402
 
-import ccqppy_tpu as cq  # noqa: E402
-from ccqppy_tpu.models import BBPGDConfig, MPRGPBBConfig  # noqa: E402
-from ccqppy_tpu.parallel import solve_batched_sharded, solve_sharded  # noqa: E402
-from ccqppy_tpu.parallel.distributed import (init_distributed,  # noqa: E402
+import ccqppy_jax as cq  # noqa: E402
+from ccqppy_jax.models import BBPGDConfig, MPRGPBBConfig  # noqa: E402
+from ccqppy_jax.parallel import solve_batched_sharded, solve_sharded  # noqa: E402
+from ccqppy_jax.parallel.distributed import (init_distributed,  # noqa: E402
                                              make_hybrid_mesh)
 
 idx, count = init_distributed(f"127.0.0.1:{port}", nproc, pid)

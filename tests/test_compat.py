@@ -1,14 +1,14 @@
-"""Drop-in compat API tests: reference-style classes over the TPU core.
+"""Drop-in compat API tests: reference-style classes over the JAX core.
 
 Mirrors the reference's own test suite
-(``/root/reference/tests/test_module.py``) through our compat layer — the
+(``CCQPpy/tests/test_module.py``) through our compat layer — the
 same class names, ctor signatures, ``solve() -> self`` protocol, and
 ``solution_*`` properties.
 """
 import numpy as np
 import pytest
 
-from ccqppy_tpu import compat
+from ccqppy_jax import compat
 
 
 def _tridiag():
@@ -105,7 +105,7 @@ def test_dtype_resolved_at_call_time():
     drop-in layer resolves its dtype per call, not at import (round-4
     advisor: a frozen module constant silently gave f32 solves to users who
     flipped the flag post-import; the reference's own tests run f64 at tol
-    1e-8, /root/reference/tests/test_module.py:18-73)."""
+    1e-8, CCQPpy/tests/test_module.py:18-73)."""
     import jax
 
     A, b, _ = _tridiag()

@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ccqppy_tpu as cq
-from ccqppy_tpu.models import BBPGDConfig, MPRGPConfig
-from ccqppy_tpu.parallel import solve_batched
-from ccqppy_tpu.utils import problems
-from ccqppy_tpu.utils.diagnostics import check_result, timed_solve, trim_trace
-from ccqppy_tpu.utils.random_qp import random_qp_batch
+import ccqppy_jax as cq
+from ccqppy_jax.models import BBPGDConfig, MPRGPConfig
+from ccqppy_jax.parallel import solve_batched
+from ccqppy_jax.utils import problems
+from ccqppy_jax.utils.diagnostics import check_result, timed_solve, trim_trace
+from ccqppy_jax.utils.random_qp import random_qp_batch
 
 
 def test_residual_trace_recorded():

@@ -1,12 +1,11 @@
 """Multi-process (2-host analogue) distributed tests on CPU.
 
-The container has one TPU chip, so multi-HOST paths are validated with
-JAX's multi-controller runtime on CPU: two OS processes, 2 virtual devices
-each, cross-process collectives over the gloo transport
-(``parallel.distributed.init_distributed``).  The code paths are identical
-on a TPU pod — only the platform and coordinator transport differ.  The
-round-1 verdict flagged multi-host bootstrap as the missing distributed
-piece; this is its regression test.
+Multi-HOST paths are validated with JAX's multi-controller runtime on
+CPU: two OS processes, 2 virtual devices each, cross-process collectives
+over the gloo transport (``parallel.distributed.init_distributed``).  The
+code paths are identical on GPU hosts — only the platform and the
+collective transport differ.  This is the regression test of the
+multi-host bootstrap.
 """
 import os
 import socket
@@ -54,7 +53,7 @@ def test_two_process_cpu_cluster():
 
 def test_make_hybrid_mesh_single_process():
     """Single-process fallback: a 2-D mesh over local devices."""
-    from ccqppy_tpu.parallel.distributed import make_hybrid_mesh
+    from ccqppy_jax.parallel.distributed import make_hybrid_mesh
     mesh = make_hybrid_mesh(ici_size=4)
     assert dict(mesh.shape) == {"batch": len(jax.devices()) // 4, "model": 4}
     with pytest.raises(ValueError):
@@ -64,11 +63,12 @@ def test_make_hybrid_mesh_single_process():
 def test_scaling_probe_smoke():
     """The weak-scaling probe runs on the virtual CPU mesh and reports
     sane efficiency numbers."""
-    from ccqppy_tpu.parallel.distributed import scaling_probe
+    from ccqppy_jax.parallel.distributed import scaling_probe
     import jax.numpy as jnp
+    # The CPU has no entry in the peak table; give the guard a peak.
     rows = scaling_probe(n_devices_list=[1, 2], batch_per_device=4, n=32,
                          max_matvecs=2000, reps=1, tol=1e-8,
-                         dtype=jnp.float64)
+                         dtype=jnp.float64, peak_bytes_per_s=1e12)
     assert [r["devices"] for r in rows] == [1, 2]
     assert all(r["converged"] == 1.0 for r in rows)
     assert rows[0]["efficiency_vs_first"] == 1.0

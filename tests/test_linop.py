@@ -7,9 +7,9 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-import ccqppy_tpu as cq
-from ccqppy_tpu.models import BBPGDConfig, MPRGPBBConfig
-from ccqppy_tpu.ops.linop import BlockSparseOperator, DenseOperator
+import ccqppy_jax as cq
+from ccqppy_jax.models import BBPGDConfig, MPRGPBBConfig
+from ccqppy_jax.ops.linop import BlockSparseOperator, DenseOperator
 
 
 def _block_tridiag(nb, bs, seed=0, dtype=np.float64):
@@ -93,51 +93,68 @@ def test_blocksparse_memory_footprint():
     assert op.blocks.size < 0.2 * dense_elems
 
 
-# ------------------------------------------------- SymmetricPackedDense
-def test_symmetric_packed_dense_matvec_and_solver():
-    """Packed-upper-triangle operator: matvec == dense matvec (incl. a
-    non-tile-multiple n handled by internal padding), Jacobi diagonal
-    correct, inf_norm correct, and PCG solves through it."""
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.ops.linop import SymmetricPackedDense
+# ------------------------------------------------------- generators
+def test_random_qp_exactly_symmetric_and_consistent():
+    """The Wishart generator gives an exactly symmetric A (whatever the
+    GEMM's summation order) and b == -A x_uncon to f32 rounding."""
+    import jax
 
-    rng = np.random.default_rng(8)
-    n = 300                                   # pads to 384 at tile=128
-    G = rng.standard_normal((n, n))
-    A = jnp.asarray(G @ G.T + n * np.eye(n), jnp.float64)
-    op = SymmetricPackedDense.from_dense(A, tile=128)
-    x = jnp.asarray(rng.standard_normal(n), jnp.float64)
-    np.testing.assert_allclose(np.asarray(op.matvec(x)),
-                               np.asarray(A @ x), rtol=1e-12, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(op.diagonal()),
-                               np.asarray(jnp.diagonal(A)))
-    np.testing.assert_allclose(float(op.inf_norm()),
-                               float(jnp.max(jnp.sum(jnp.abs(A), axis=1))),
-                               rtol=1e-12)
+    from ccqppy_jax.utils.random_qp import random_qp, random_qp_batch
 
-    b = jnp.asarray(-np.asarray(A) @ rng.uniform(-0.5, 0.5, n), jnp.float64)
+    A, b, x = random_qp(jax.random.PRNGKey(3), 48, jnp.float32, 1.0)
+    A, b, x = (np.asarray(v) for v in (A, b, x))
+    assert A.dtype == np.float32
+    np.testing.assert_array_equal(A, A.T)
+    ref = -(A.astype(np.float64) @ x.astype(np.float64))
+    scale = np.abs(A.astype(np.float64)) @ np.abs(x.astype(np.float64))
+    assert np.all(np.abs(b - ref) <= 8 * np.finfo(np.float32).eps * scale)
+    As, bs, _ = random_qp_batch(jax.random.PRNGKey(3), 5, 24, jnp.float32,
+                                1.0, chunk=2)
+    As = np.asarray(As)
+    assert As.shape == (5, 24, 24) and np.asarray(bs).shape == (5, 24)
+    np.testing.assert_array_equal(As, As.transpose(0, 2, 1))
+    assert np.all(np.linalg.eigvalsh(As.astype(np.float64)) >= 24 - 1e-3)
+
+
+def test_block_tridiag_qp_matches_dense():
+    """The ELL block-tridiagonal generator: SPD, matvec == its dense form,
+    b == -A x_exact, and PCG under the box recovers the interior x_exact."""
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.utils.random_qp import block_tridiag_qp
+
+    n, bs = 64, 4
+    op, b, x_exact = block_tridiag_qp(n, seed=1, dtype=jnp.float64, block=bs)
+    assert op.blocks.shape == (n // bs, 3, bs, bs) and op.n == n
+    dense = np.zeros((n, n))
+    blocks, cols = np.asarray(op.blocks), np.asarray(op.cols)
+    for r in range(n // bs):
+        for k in range(3):
+            c = cols[r, k]
+            dense[r*bs:(r+1)*bs, c*bs:(c+1)*bs] += blocks[r, k]
+    np.testing.assert_allclose(dense, dense.T, atol=1e-15)
+    assert np.linalg.eigvalsh(dense)[0] > 0
+    np.testing.assert_allclose(np.asarray(b), -dense @ np.asarray(x_exact),
+                               rtol=1e-6, atol=1e-6)
     proj = cq.box(-jnp.ones(n, jnp.float64), jnp.ones(n, jnp.float64),
                   jnp.float64)
-    cfg = PCGConfig(tol=1e-9, max_matvecs=2000)
-    r = cq.models.pcg.solve(op, b, proj=proj, config=cfg)
-    r_d = cq.models.pcg.solve(A, b, proj=proj, config=cfg)
-    assert bool(r.converged) and bool(r_d.converged)
-    np.testing.assert_allclose(np.asarray(r.x), np.asarray(r_d.x), atol=1e-8)
-    assert abs(int(r.matvecs) - int(r_d.matvecs)) <= 1
+    r = cq.models.pcg.solve(op, b, proj=proj,
+                            config=PCGConfig(tol=1e-10, max_matvecs=500))
+    assert bool(r.converged)
+    np.testing.assert_allclose(np.asarray(r.x), np.asarray(x_exact),
+                               atol=1e-7)
 
 
 def test_fast_dense_contract_and_rr_solve():
     """FastDense: one f32 buffer, cheap DEFAULT-precision ``matvec`` +
-    HIGHEST ``matvec_exact`` (round 5 — on TPU the batched f32 GEMV at
-    HIGHEST pays multi-pass bf16 emulation, 13.2 vs 8.9 ms/sweep measured;
-    off-TPU both tiers are full f32, so this asserts the CONTRACT and the
-    rr-PCG integration, exercised numerically on the TPU benchmarks)."""
+    HIGHEST ``matvec_exact``.  On the CPU both tiers are full f32, so this
+    asserts the CONTRACT and the rr-PCG integration; the DEFAULT error on
+    the card is checked by tests/test_gpu.py."""
     import jax
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.ops.linop import DenseOperator, FastDense
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.ops.linop import DenseOperator, FastDense
 
     rng = np.random.default_rng(0)
     n = 64
@@ -157,6 +174,6 @@ def test_fast_dense_contract_and_rr_solve():
     r = cq.models.pcg.solve(op, b, proj=proj, config=cfg)
     assert bool(r.converged)
     g = np.asarray(op.matvec_exact(r.x)) + np.asarray(b)
-    from ccqppy_tpu.models.base import pg_residual
+    from ccqppy_jax.models.base import pg_residual
     tres = float(pg_residual(proj, r.x, jnp.asarray(g), 1e-6, op))
     assert tres <= 1e-5 * 1.02

@@ -1,6 +1,6 @@
 """Tests for the mixed-precision ensemble pipeline and its building blocks.
 
-Covers the TPU-native extensions with no reference counterpart:
+Covers the extensions with no reference counterpart:
 ``Projection.binding_mask`` (ops/projections.py), the low-precision
 ``CastDense`` operator (ops/linop.py), the ``pcg`` face solver (models/pcg.py),
 and ``parallel.solve_batched_mixed`` (parallel/mixed.py).  The reference is a
@@ -14,12 +14,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ccqppy_tpu.models import SOLVERS, BBPGDfConfig, PCGConfig
-from ccqppy_tpu.ops import projections as P
-from ccqppy_tpu.ops.linop import CastDense, DenseOperator, as_operator
-from ccqppy_tpu.models.base import pg_residual
-from ccqppy_tpu.parallel import prepare_dense_batch, solve_batched_mixed
-from ccqppy_tpu.utils.random_qp import random_qp_batch
+from ccqppy_jax.models import SOLVERS, BBPGDfConfig, PCGConfig
+from ccqppy_jax.ops import projections as P
+from ccqppy_jax.ops.linop import CastDense, DenseOperator, as_operator
+from ccqppy_jax.models.base import pg_residual
+from ccqppy_jax.parallel import prepare_dense_batch, solve_batched_mixed
+from ccqppy_jax.utils.random_qp import random_qp_batch
 
 
 # ---------------------------------------------------------------- binding_mask
@@ -214,8 +214,8 @@ def test_solve_batched_mixed_warm_start():
 
 
 def test_prepare_dense_batch_cpu_passthrough():
-    """On non-TPU backends prepare_dense_batch is a plain device_put (the
-    layout pinning is TPU-only); values and the bf16 copy round-trip."""
+    """prepare_dense_batch is a plain device_put plus the optional cast:
+    values and the bf16 copy round-trip."""
     rng = np.random.default_rng(4)
     As = jnp.asarray(rng.standard_normal((3, 8, 8)), jnp.float32)
     ref = np.asarray(As)
@@ -223,6 +223,21 @@ def test_prepare_dense_batch_cpu_passthrough():
     np.testing.assert_array_equal(np.asarray(out), ref)
     assert low.dtype == jnp.bfloat16
     np.testing.assert_allclose(np.asarray(low, np.float32), ref, atol=0.02)
+
+
+def test_prepare_dense_batch_from_host_array():
+    """A host (numpy) stack lands on the device unchanged, same dtype and
+    shape; no cast copy unless asked for."""
+    import jax
+    rng = np.random.default_rng(5)
+    As = rng.standard_normal((2, 6, 6)).astype(np.float32)
+    out = prepare_dense_batch(As)
+    assert isinstance(out, jax.Array)
+    assert out.dtype == jnp.float32 and out.shape == As.shape
+    np.testing.assert_array_equal(np.asarray(out), As)
+    out32, low = prepare_dense_batch(As, jnp.float16)
+    assert low.dtype == jnp.float16 and low.shape == As.shape
+    np.testing.assert_array_equal(np.asarray(out32), As)
 
 
 def test_pcg_stall_reports_not_converged():
@@ -267,7 +282,7 @@ def test_pcg_no_false_stall_near_tolerance():
 def test_solve_batched_compact_straggler_path():
     """solve_batched_compact's phase-2 path (was: TypeError, missing trace
     field) returns honest accumulated results."""
-    from ccqppy_tpu.parallel import solve_batched_compact
+    from ccqppy_jax.parallel import solve_batched_compact
     As, bs, proj = _small_ensemble(B=6, n=16, seed=3)
     cfg = BBPGDfConfig(tol=5e-5, max_matvecs=800)   # above the f32 floor
     r = solve_batched_compact("bbpgd_f", As, bs, 3, proj=proj, config=cfg)
@@ -278,7 +293,7 @@ def test_solve_batched_compact_straggler_path():
 # --------------------------------------------- residual-replacement mixed PCG
 
 def _rr_problem(n=64, seed=0):
-    from ccqppy_tpu.ops.linop import MixedPrecDense
+    from ccqppy_jax.ops.linop import MixedPrecDense
     rng = np.random.default_rng(seed)
     G = rng.standard_normal((n, n))
     A = jnp.asarray(G @ G.T + n * np.eye(n), jnp.float64)
@@ -329,8 +344,8 @@ def test_pcg_rr_single_precision_operator_is_consistent():
 
 def test_pcg_rr_batched():
     """rr-PCG under vmap via solve_batched with a batched MixedPrecDense."""
-    from ccqppy_tpu.ops.linop import MixedPrecDense
-    from ccqppy_tpu.parallel import solve_batched
+    from ccqppy_jax.ops.linop import MixedPrecDense
+    from ccqppy_jax.parallel import solve_batched
     B, n = 8, 32
     As, bs_, _ = random_qp_batch(jax.random.PRNGKey(2), B, n, jnp.float64,
                                  diag_boost=1.0)
@@ -363,12 +378,12 @@ def test_f64_exact_rung_raw_wishart():
     import jax
     import numpy as np
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.models.pcg import solve as pcg_solve
-    from ccqppy_tpu.ops.linop import DenseOperator, MixedPrecDense
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.models.pcg import solve as pcg_solve
+    from ccqppy_jax.ops.linop import DenseOperator, MixedPrecDense
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     B, N, tol = 8, 160, 1e-5
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(0), B, N, jnp.float64,
@@ -404,11 +419,11 @@ def test_f64_rung_deep_tolerance():
     MixedPrecDense.matvec)."""
     import jax
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops.linop import DenseOperator, MixedPrecDense
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops.linop import DenseOperator, MixedPrecDense
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     B, n = 4, 128
     # Raw Wishart, seed chosen for cond in [6e4, 2.4e5] — inside the rung's

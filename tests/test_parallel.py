@@ -5,11 +5,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import ccqppy_tpu as cq
-from ccqppy_tpu.models import BBPGDConfig, MPRGPBBConfig, SPGConfig
-from ccqppy_tpu.parallel import (make_batch_mesh, make_mesh, solve_batched,
+import ccqppy_jax as cq
+from ccqppy_jax.models import BBPGDConfig, MPRGPBBConfig, SPGConfig
+from ccqppy_jax.parallel import (make_batch_mesh, make_mesh, solve_batched,
                                  solve_batched_sharded, solve_sharded)
-from ccqppy_tpu.utils.random_qp import random_qp_batch
+from ccqppy_jax.utils.random_qp import random_qp_batch
 
 CFG = BBPGDConfig(tol=1e-8, max_matvecs=5000)
 
@@ -101,7 +101,7 @@ def test_fused_compact_matches_plain(batch_problem):
     solve_batched_fused_compact): same convergence semantics as the plain
     batched solve — every lane converged, honest residuals, matvec counts
     accumulated across phases."""
-    from ccqppy_tpu.parallel import solve_batched_fused_compact
+    from ccqppy_jax.parallel import solve_batched_fused_compact
     As, bs, _, proj = batch_problem
     r_plain = solve_batched("bbpgd", As, bs, proj=proj, config=CFG)
     mv = np.asarray(r_plain.matvecs)
@@ -122,7 +122,7 @@ def test_fused_compact_matches_plain(batch_problem):
 def test_fused_compact_bucket_overflow_host_fallback(batch_problem):
     """More stragglers than the bucket: host fallback finishes the overflow
     lanes (converged flags stay honest either way)."""
-    from ccqppy_tpu.parallel import solve_batched_fused_compact
+    from ccqppy_jax.parallel import solve_batched_fused_compact
     As, bs, _, proj = batch_problem
     r = solve_batched_fused_compact("bbpgd", As, bs, 3, proj=proj,
                                     config=CFG, bucket=2, host_fallback=True)
@@ -141,7 +141,7 @@ def test_compact_budget_honest_and_trace_scatter(batch_problem):
     residual trace, so the trace tail agrees with the final residual."""
     import dataclasses
 
-    from ccqppy_tpu.parallel import solve_batched_compact
+    from ccqppy_jax.parallel import solve_batched_compact
     As, bs, _, proj = batch_problem
     cfg = dataclasses.replace(CFG, trace_len=512)
     r_plain = solve_batched("bbpgd", As, bs, proj=proj, config=cfg)
@@ -160,7 +160,7 @@ def test_compact_budget_honest_and_trace_scatter(batch_problem):
 
 
 def test_compact_rejects_budgetless_phase2(batch_problem):
-    from ccqppy_tpu.parallel import (solve_batched_compact,
+    from ccqppy_jax.parallel import (solve_batched_compact,
                                      solve_batched_fused_compact)
     As, bs, _, proj = batch_problem
     with pytest.raises(ValueError, match="phase1_matvecs"):
@@ -172,7 +172,7 @@ def test_compact_rejects_budgetless_phase2(batch_problem):
 
 
 def test_fused_compact_budget_honest(batch_problem):
-    from ccqppy_tpu.parallel import solve_batched_fused_compact
+    from ccqppy_jax.parallel import solve_batched_fused_compact
     As, bs, _, proj = batch_problem
     r = solve_batched_fused_compact("bbpgd", As, bs, 3, proj=proj,
                                     config=CFG, bucket=2, host_fallback=True)
@@ -185,9 +185,9 @@ def test_sharded_blocksparse_matches_single_device(solver):
     test scale) matches the single-device BlockSparseOperator solve."""
     import scipy.sparse as sp
 
-    from ccqppy_tpu.models import SOLVERS
-    from ccqppy_tpu.ops.linop import BlockSparseOperator
-    from ccqppy_tpu.parallel import solve_sharded_blocksparse
+    from ccqppy_jax.models import SOLVERS
+    from ccqppy_jax.ops.linop import BlockSparseOperator
+    from ccqppy_jax.parallel import solve_sharded_blocksparse
 
     bs_, nb = 4, 16                       # 16 block rows over 8 devices
     n = bs_ * nb
@@ -225,7 +225,7 @@ def test_fused_compact_spg_keys(batch_problem):
     path: per-lane keys thread into phase 1, straggler lanes restart phase 2
     on a fold_in-derived independent stream, and the host fallback path
     threads keys the same way."""
-    from ccqppy_tpu.parallel import solve_batched_fused_compact
+    from ccqppy_jax.parallel import solve_batched_fused_compact
     As, bs, _, proj = batch_problem
     cfg = SPGConfig(tol=1e-6, max_matvecs=5000)
     keys = jax.random.split(jax.random.PRNGKey(3), As.shape[0])
@@ -257,7 +257,7 @@ def test_sharded_jacobi_pcg_diagonal_contract():
     ``diagonal()`` (contiguous-equal-row-block contract, ops/linop.py)
     feeds the preconditioner and the distributed solve matches the
     single-device Jacobi solve exactly."""
-    from ccqppy_tpu.models import PCGConfig
+    from ccqppy_jax.models import PCGConfig
     n = 64
     rng = np.random.default_rng(21)
     # Strongly heterogeneous diagonal so Jacobi genuinely changes the
@@ -308,9 +308,9 @@ def test_dryrun_multichip_16_devices():
     """Mesh-factorization coverage beyond the driver's n=8: a 16-virtual-
     device dry run must factor to a 2x8 (batch x model) hybrid mesh and
     converge all three legs (dp ensemble, tp row-sharded dense, tp
-    block-sparse).  Runs in a subprocess because the in-process backend is
-    pinned to 8 virtual devices by conftest (dryrun_multichip rebuilds its
-    own backend when the live device count differs)."""
+    block-sparse).  Runs in a subprocess with its own CPU device count,
+    because the in-process backend is pinned to 8 virtual devices by
+    conftest."""
     import pathlib
     import subprocess
     import sys
@@ -320,7 +320,7 @@ def test_dryrun_multichip_16_devices():
         [sys.executable, "-c",
          "import __graft_entry__ as g; g.dryrun_multichip(16)"],
         cwd=repo, capture_output=True, text=True, timeout=600,
-        env={**__import__("os").environ,
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu",
              "XLA_FLAGS": "--xla_force_host_platform_device_count=16"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = proc.stdout
@@ -349,7 +349,7 @@ def test_dryrun_multichip_asymmetric_and_32(n_devices, want_shape):
         [sys.executable, "-c",
          f"import __graft_entry__ as g; g.dryrun_multichip({n_devices})"],
         cwd=repo, capture_output=True, text=True, timeout=900,
-        env={**__import__("os").environ,
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu",
              "XLA_FLAGS":
              f"--xla_force_host_platform_device_count={n_devices}"})
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -365,17 +365,17 @@ def test_direct_serving_shards_over_batch_axis():
     sharding: the projected-inverse warm start and the verified-PCG finish
     both shard over the batch axis of a mesh (collective-free — each device
     serves its own ensemble shard), which is how the serving pipeline spans
-    a pod."""
+    several devices."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as PSpec
 
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.models.direct import direct_x0, spd_inverse_batch
-    from ccqppy_tpu.ops.linop import DenseOperator
-    from ccqppy_tpu.parallel import make_batch_mesh, solve_batched_sharded
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.models.direct import direct_x0, spd_inverse_batch
+    from ccqppy_jax.ops.linop import DenseOperator
+    from ccqppy_jax.parallel import make_batch_mesh, solve_batched_sharded
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     mesh = make_batch_mesh()
     ndev = len(jax.devices())

@@ -26,8 +26,8 @@ sys.path.insert(0, "/root/reference/src")
 from ccqppy import solution_spaces as ref_ss  # noqa: E402
 from ccqppy import solvers as ref_solvers  # noqa: E402
 
-import ccqppy_tpu as cq  # noqa: E402
-from ccqppy_tpu.models import (APGDConfig, BBPGDConfig, BBPGDfConfig,
+import ccqppy_jax as cq  # noqa: E402
+from ccqppy_jax.models import (APGDConfig, BBPGDConfig, BBPGDfConfig,
                                MPRGPConfig, PGDConfig, SPGConfig)  # noqa: E402
 
 TOL = 1e-10

@@ -1,7 +1,7 @@
 """Solver integration tests against the oracle problem suite.
 
 Mirrors the reference's core test
-(``/root/reference/tests/test_module.py:18-73``): every solver, on every
+(``CCQPpy/tests/test_module.py:18-73``): every solver, on every
 analytical problem, must converge at tol 1e-8 within a 10k-matvec budget and
 land within 1e-5 of the exact solution.  Unlike the reference, MPRGP-BB is
 tested too (it is commented out there), plus ball- and cone-constrained
@@ -12,9 +12,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from ccqppy_tpu.models import SOLVERS
-from ccqppy_tpu.ops import projections as P
-from ccqppy_tpu.utils import problems
+from ccqppy_jax.models import SOLVERS
+from ccqppy_jax.ops import projections as P
+from ccqppy_jax.utils import problems
 
 TOL = 1e-8
 BUDGET = 10_000
@@ -154,8 +154,8 @@ def test_spg_eq25_criterion():
     residual; the faithful opt-in 'd_norm' can report success while the Eq.25
     residual is still large (measured 5.8e-1 on the n=10k cone benchmark)."""
     import jax
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops.linop import as_operator
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops.linop import as_operator
     fn, cfg_cls = SOLVERS["spg"]
     prob = problems.box_constrained_spd()
     cfg = cfg_cls(tol=1e-8, max_matvecs=BUDGET, criterion="eq25")
@@ -172,7 +172,7 @@ def test_pcg_delegates_to_mprgp_bb_on_curved_sets():
     BB-projection family limit-cycles on cone ensembles (disjoint study:
     bbpgd_f 10-53% convergence, mprgp_bb 100%)."""
     import jax
-    from ccqppy_tpu.models import MPRGPBBConfig, PCGConfig
+    from ccqppy_jax.models import MPRGPBBConfig, PCGConfig
     prob_proj = P.blockwise(P.lorentz_cone(1.0, dtype=jnp.float64), 3)
     rng = np.random.default_rng(5)
     n = 9
@@ -198,7 +198,7 @@ def _hetero_diag_problem(n=48, spread=1e3, seed=21):
     x_exact = rng.uniform(-0.5, 0.5, n)
     b = -A @ x_exact
     import jax.numpy as jnp
-    proj = __import__("ccqppy_tpu").box(-jnp.ones(n, jnp.float64),
+    proj = __import__("ccqppy_jax").box(-jnp.ones(n, jnp.float64),
                                         jnp.ones(n, jnp.float64), jnp.float64)
     return jnp.asarray(A, jnp.float64), jnp.asarray(b, jnp.float64), proj
 
@@ -242,8 +242,8 @@ def test_apgd_deep_tolerance_backtrack_robustness():
     forever at tol 1e-10 on this problem).  The default backtrack_slack
     treats sub-fp-resolution violations as satisfied; both APGD variants
     must then reach tol 1e-10 on the README box QP."""
-    import ccqppy_tpu as cq
-    from ccqppy_tpu.models import APGDConfig
+    import ccqppy_jax as cq
+    from ccqppy_jax.models import APGDConfig
 
     A = jnp.array([[2., -1., 0.], [-1., 2., -1.], [0., -1., 2.]],
                   jnp.float64)
@@ -274,8 +274,8 @@ def test_mprgp_fused_matches_unfused(solver_name, family):
 
     import jax
 
-    from ccqppy_tpu.parallel import solve_batched
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    from ccqppy_jax.parallel import solve_batched
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     B, n = 32, 60
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(0), B, n, jnp.float64,
@@ -308,10 +308,10 @@ def test_pcg_verified_convergence_deep_sweeps():
     at or below tol."""
     import jax
 
-    from ccqppy_tpu.models import PCGConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops.linop import DenseOperator
-    from ccqppy_tpu.parallel import solve_batched
+    from ccqppy_jax.models import PCGConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops.linop import DenseOperator
+    from ccqppy_jax.parallel import solve_batched
 
     rng = np.random.default_rng(0)
     B, n, c, tol = 16, 256, 0.02, 2e-5
@@ -356,10 +356,10 @@ def test_mprgp_verified_convergence_deep_sweeps(fused):
 
     import jax
 
-    from ccqppy_tpu.models import MPRGPBBConfig
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops.linop import DenseOperator
-    from ccqppy_tpu.parallel import solve_batched
+    from ccqppy_jax.models import MPRGPBBConfig
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops.linop import DenseOperator
+    from ccqppy_jax.parallel import solve_batched
 
     rng = np.random.default_rng(3)
     B, n, c, tol = 16, 256, 0.02, 2e-5
@@ -396,11 +396,11 @@ def test_direct_serving_mode():
     independent fresh-gradient audit."""
     import jax
 
-    from ccqppy_tpu.models import (PCGConfig, solve_direct_batched,
+    from ccqppy_jax.models import (PCGConfig, solve_direct_batched,
                                    spd_inverse_batch)
-    from ccqppy_tpu.models.base import pg_residual
-    from ccqppy_tpu.ops.linop import DenseOperator
-    from ccqppy_tpu.utils.random_qp import random_qp_batch
+    from ccqppy_jax.models.base import pg_residual
+    from ccqppy_jax.ops.linop import DenseOperator
+    from ccqppy_jax.utils.random_qp import random_qp_batch
 
     B, n, tol = 12, 48, 1e-8
     As, bs, _ = random_qp_batch(jax.random.PRNGKey(2), B, n, jnp.float64,
